@@ -1,14 +1,15 @@
 #!/usr/bin/env python
-"""Round-2 performance suite: every number quoted in BENCHMARKS.md measured
-through the public API in one run on the real chip.
+"""Performance suite: the layer numbers measured through the public API in
+one run on an NVIDIA GPU.
 
-  python benchmarks/perf_suite.py            # everything (needs the TPU)
+  python benchmarks/perf_suite.py            # everything (needs a GPU)
   python benchmarks/perf_suite.py --skip-mixture
 
 Covers:
-  * mixture headline (bench.measure, 65536x2048 order-2 fwd+bwd)
-  * neighbor aggregation (L=16, K=16, F=6 -> E=25): dense vs factored vs
-    fused Pallas, fwd and fwd+bwd, n in {512, 1664}
+  * mixture headline (bench.py shape (a), 65536x2048 order-2 fwd+bwd, fused
+    kernels and blockwise XLA)
+  * neighbor aggregation (L=16, K=16, F=6 -> E=25): dense vs factored,
+    fwd and fwd+bwd, n in {512, 1664}
   * pn_step at capacity 928 and 1664 (forward + losses + grads + Adam)
   * pn_epoch_scan with a 30-step curriculum (one dispatch per epoch)
   * 50-step rollout at 64x64 (inference scan)
@@ -41,8 +42,6 @@ def bench_aggregation(results, n):
     from pigs_tpu.ops.aggregate import (aggregate_neighbors,
                                         aggregate_neighbors_factored,
                                         neighbor_mask)
-    from pigs_tpu.ops.pallas_aggregate import (aggregate_neighbors_pallas,
-                                               radii_of)
     L, K, F, d = 16, 16, 6, 2
     ks = jax.random.split(jax.random.PRNGKey(0), 8)
     feats = jax.random.normal(ks[0], (n, L), jnp.float32)
@@ -63,7 +62,6 @@ def bench_aggregation(results, n):
     active = jnp.ones((n,), bool)
     mask = neighbor_mask(means, cov, active)
     out = {"mean_neighbors": float(jnp.mean(jnp.sum(mask, axis=1)))}
-    radii = radii_of(cov, active)
 
     def dense(f, q, k, m):
         return aggregate_neighbors(f, transform, q, k, freqs, dist_t, m, mask)
@@ -72,23 +70,14 @@ def bench_aggregation(results, n):
         return aggregate_neighbors_factored(f, transform, q, k, freqs, dist_t,
                                             m, mask)
 
-    def pallas(f, q, k, m):
-        return aggregate_neighbors_pallas(f, transform, q, k, freqs, dist_t,
-                                          m, radii)
-
-    for name, fn in [("dense", dense), ("factored", factored),
-                     ("pallas", pallas)]:
+    for name, fn in [("dense", dense), ("factored", factored)]:
         fwd = jax.jit(fn)
         loss = jax.jit(jax.grad(
             lambda f, q, k, m: jnp.sum(fn(f, q, k, m) ** 2),
             argnums=(0, 1, 2, 3)))
-        try:
-            out[f"{name}_fwd_ms"] = timed(fwd, feats, queries, keys,
-                                          means) * 1e3
-            out[f"{name}_fwdbwd_ms"] = timed(loss, feats, queries, keys,
-                                             means) * 1e3
-        except Exception as e:  # pallas path may not fit some n
-            out[f"{name}_error"] = str(e)[:120]
+        out[f"{name}_fwd_ms"] = timed(fwd, feats, queries, keys, means) * 1e3
+        out[f"{name}_fwdbwd_ms"] = timed(loss, feats, queries, keys,
+                                         means) * 1e3
     results[f"aggregation_n{n}"] = out
     print(f"aggregation n={n}:", json.dumps(out), flush=True)
 
@@ -157,12 +146,14 @@ def main():
 
     global jax, jnp
     import jax
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
     import jax.numpy as jnp
-
-    results = {"backend": jax.default_backend()}
+    from pigs_tpu.utils.runtime import (card_line, enable_compile_cache,
+                                        require_gpu)
+    enable_compile_cache()
+    dev = require_gpu()
+    results = {"device": {"platform": dev.platform, "kind": dev.device_kind,
+                          "count": len(jax.devices())},
+               "card": card_line()}
 
     if not args.skip_agg:
         for n in (int(s) for s in args.agg_ns.split(",")):
@@ -177,10 +168,8 @@ def main():
         print(f"rollout 50 steps: {evo*1e3:.1f} ms", flush=True)
 
     if not args.skip_mixture:
-        from bench import measure
-        results["mixture_pair_evals_per_s"] = measure()
-        print(f"mixture headline: {results['mixture_pair_evals_per_s']/1e9:.2f}"
-              " e9 pair/s", flush=True)
+        from bench import kernel_vs_xla
+        results["mixture_fwd_bwd_ms"] = kernel_vs_xla(("a",))["a"]
 
     print(json.dumps(results))
     if args.out:

@@ -1,16 +1,18 @@
-"""pigs-tpu: a TPU-native framework for physics-informed Gaussian-mixture PDE solving.
+"""A JAX framework for physics-informed Gaussian-mixture PDE solving.
 
-Built from scratch in JAX (XLA / Pallas / pjit) with the capabilities of the reference
+Built in JAX (XLA / Pallas / shard_map) with the capabilities of the reference
 kr4b/pigs (see SURVEY.md): a differentiable Gaussian-mixture field evaluator with
 analytic spatial derivatives up to third order, attention-based neighbor aggregation
 over Gaussian primitives, adaptive splitting/pruning under static shapes, direct
-("no-MLP") PDE solvers, and a PointNet-style dynamics-network training loop — sharded
-over TPU device meshes.
+("no-MLP") PDE solvers, and a PointNet-style dynamics-network training loop —
+shardable over device meshes.  The accelerator is an NVIDIA GPU; tests run on
+the CPU.
 
-Layer map (TPU-native redesign of the reference's five layers, SURVEY.md §1):
+Layer map (a functional redesign of the reference's five layers, SURVEY.md §1):
 
   L0  pigs_tpu.ops       fused mixture evaluation + neighbor aggregation
-                         (jnp oracle, blockwise XLA path, Pallas kernels)
+                         (jnp oracle, blockwise XLA path, fused Pallas
+                         kernels on the Triton route)
   L1  pigs_tpu.gaussians parameterization, covariance/conic construction, 2x2 eig
   L2  pigs_tpu.models    dynamics network + simulation state (padded, functional)
   L3  pigs_tpu.train     PN training loop, no-MLP solvers, fit-to-target init

@@ -130,8 +130,9 @@ def build_covariances(scaling: jax.Array, transforms: jax.Array):
 def sym_inverse(mat: jax.Array) -> jax.Array:
     """Closed-form inverse of symmetric PD ``(..., d, d)`` matrices, d in {1,2,3}.
 
-    Avoids ``jnp.linalg.inv`` so the op lowers to plain VPU arithmetic on TPU and
-    keeps full dtype flexibility (f32/f64) inside jit and Pallas.
+    Avoids ``jnp.linalg.inv`` so the op lowers to plain elementwise arithmetic
+    that XLA fuses, and keeps full dtype flexibility (f32/f64) inside jit and
+    Pallas.
     """
     d = mat.shape[-1]
     if d == 1:

@@ -104,7 +104,8 @@ class ModelConfig(NamedTuple):
             # Must cover the training-time domain-randomized ICs: the grid
             # edge is sampled in [15, 40) (main_pn.py:153), i.e. up to 39^2
             # interior Gaussians for d=2, plus <=100 boundary Gaussians and
-            # split margin.  1664 = 13*128 keeps the padded axis lane-aligned.
+            # split margin.  1664 = 13*128, the capacity of the committed
+            # Burgers checkpoints.
             capacity = max(2 * nx * ny + 128,
                            1664 if d == 2 else 2 * 40 + 128)
         return ModelConfig(problem=problem, rule=rule, nx=nx, ny=ny, d=d,

@@ -3,7 +3,7 @@
 The reference mutates variable-length tensors — concatenating split Gaussians,
 boolean-indexing out pruned ones, and performing Adam-state "surgery"
 (model_pn.py:578-610, test_no_mlp.py:188-245).  Under XLA everything must be
-static-shape, so the TPU-native design (SURVEY.md §7 design stance) keeps every
+static-shape, so this design (SURVEY.md §7 design stance) keeps every
 per-Gaussian array at capacity ``N`` with an ``active`` mask:
 
   * prune    = clear mask bits (slots become free, contribute exactly 0 everywhere)

@@ -4,7 +4,7 @@
 // The reference's training drivers load FNO Navier-Stokes trajectories and
 // stored Gaussian fits from disk on the hot path (main_pn.py:36-49,142-149;
 // test_initialize.py:41-47).  This library provides the production equivalent
-// for the TPU host: zero-copy mmap of .npy arrays and a background thread pool
+// for the accelerator host: zero-copy mmap of .npy arrays and a background thread pool
 // that materializes randomly sampled row batches into a ring of reusable
 // buffers, so device feeds never wait on the filesystem or the Python heap.
 //

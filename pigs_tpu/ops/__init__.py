@@ -3,8 +3,8 @@
 The reference implements these as a stateful CUDA extension
 (``diff_gaussian_sampling.GaussianSampler``, SURVEY.md §2.1).  Here they are pure
 functions: the dense jnp oracle (``oracle``) is the correctness ground truth, the
-blockwise XLA path (``mixture``) is the default jit-able evaluator, and the Pallas
-kernels (``pallas_mixture``) are the TPU speed-of-light path.
+blockwise XLA path (``mixture``) is the portable jit-able evaluator, and the fused
+Pallas kernels (``pallas_mixture``, Triton route) are the GPU path.
 """
 
 from pigs_tpu.ops.oracle import eval_mixture_dense, MixtureFields

@@ -1,11 +1,12 @@
 """Attention-based neighbor aggregation over Gaussian primitives.
 
-TPU-native redesign of the reference's ``preprocess_aggregate`` /
+Static-shape redesign of the reference's ``preprocess_aggregate`` /
 ``aggregate_neighbors`` CUDA methods (call sites: model_pn.py:253-264,
 test_neighbor_aggregation.py:89-98; contract reconstructed in SURVEY.md §2.1).  The
-CUDA extension builds an irregular neighbor list of overlapping Gaussians; on TPU
+CUDA extension builds an irregular neighbor list of overlapping Gaussians; here
 the same computation is a dense masked attention over all pairs — static shapes,
-VPU/MXU-friendly — with the neighborhood expressed as a boolean mask derived from a
+elementwise work and matrix products that XLA fuses — with the neighborhood
+expressed as a boolean mask derived from a
 Gaussian-overlap radius test.
 
 Semantics (per Gaussian i over neighbors j):
@@ -34,6 +35,8 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+
+from pigs_tpu.ops.matmul import matmul
 
 __all__ = ["positional_embedding", "neighbor_mask", "aggregate_neighbors",
            "aggregate_neighbors_factored"]
@@ -145,7 +148,8 @@ def aggregate_neighbors(
 #
 # with T = 2 + 8*F*d table columns (4 trig products per (octave, freq, axis)
 # plus one constant per octave).  No per-pair transcendentals, no O(n^2 * 2E)
-# elementwise work, no Pallas required — XLA maps everything onto the MXU and
+# elementwise work, no Pallas required — XLA hands the products to its matrix
+# kernels and
 # differentiates it (including twice) natively.  Periodic domains add a
 # per-axis wrap count m = round(rel/period) in {-1,0,1}; the wrap is a
 # k-independent phase shift, handled by 3 masked copies of alpha per axis with
@@ -182,9 +186,9 @@ def _axis_dmaps(distance_transform: jax.Array, F: int, d: int, dtype):
     return dsin, dcos, dconst
 
 
-def _masked_softmax(queries, keys, mask, dtype):
+def _masked_softmax(queries, keys, mask, dtype, bf16):
     K = queries.shape[-1]
-    logits = (queries @ keys.T) / jnp.sqrt(jnp.asarray(K, dtype))
+    logits = matmul(queries, keys.T, bf16) / jnp.sqrt(jnp.asarray(K, dtype))
     neg = jnp.asarray(jnp.finfo(dtype).min, dtype)
     logits = jnp.where(mask, logits, neg)
     logits_max = jnp.max(logits, axis=-1, keepdims=True)
@@ -193,7 +197,7 @@ def _masked_softmax(queries, keys, mask, dtype):
     return unnorm / jnp.maximum(denom, jnp.asarray(1e-30, dtype))
 
 
-@partial(jax.jit, static_argnames=("period",))
+@partial(jax.jit, static_argnames=("period", "bf16_products"))
 def aggregate_neighbors_factored(
     features: jax.Array,
     transform: jax.Array,
@@ -204,23 +208,28 @@ def aggregate_neighbors_factored(
     means: jax.Array,
     mask: jax.Array,
     period: Optional[float] = None,
+    bf16_products: bool = False,
 ) -> jax.Array:
     """Exact :func:`aggregate_neighbors` semantics via the angle-addition
-    factorization — O(n^2) work all on the MXU instead of O(n^2 * 2E)
-    elementwise.  Same signature, any d, differentiable in all inputs to any
-    order (plain XLA autodiff)."""
+    factorization — O(n^2) work all in matrix products instead of O(n^2 * 2E)
+    elementwise.  Same signature, any d, differentiable in all inputs (plain
+    XLA autodiff, to any order).  The matrix products are exact
+    (``HIGHEST``), or one bfloat16 pass with ``bf16_products``
+    (:func:`pigs_tpu.ops.matmul.matmul`; reverse mode only).
+    """
     n, L = features.shape
     d = means.shape[-1]
     F = frequencies.shape[0]
     dtype = features.dtype
 
-    alpha = _masked_softmax(queries, keys, mask, dtype)
-    mapped = features @ transform.T                        # (n, L)
+    mm = partial(matmul, bf16=bf16_products)
+    alpha = _masked_softmax(queries, keys, mask, dtype, bf16_products)
+    mapped = mm(features, transform.T)                     # (n, L)
     s, c = _trig_tables(means, frequencies)                # (2, n, F, d)
     dsin, dcos, dconst = _axis_dmaps(distance_transform, F, d, dtype)
 
     # Constant components: gate contribution independent of the pair.
-    out = (alpha @ mapped) * dconst[None, :]
+    out = mm(alpha, mapped) * dconst[None, :]
 
     if period is None:
         m_counts = None
@@ -264,6 +273,6 @@ def aggregate_neighbors_factored(
                     -sp * ds_a + cp * dc_a,
                     -sp * ds_a + cp * dc_a,
                 ], axis=-1)                                         # (L, 4*2F)
-            C = (alpha_m @ VM).reshape(n, L, T)
-            out = out + jnp.einsum("ilt,it,lt->il", C, U, Dmap)
+            C = mm(alpha_m, VM).reshape(n, L, T)
+            out = out + jnp.sum(C * U[:, None, :] * Dmap[None], axis=-1)
     return out

@@ -8,10 +8,11 @@ once per (sample, Gaussian) pair).
 
 Scaling strategy: the all-pairs reduction is shaped exactly like attention
 (samples ~ queries, Gaussians ~ keys; SURVEY.md §5 long-context note).  The default
-path chunks the sample axis with ``lax.map`` so peak memory is
-O(chunk * n * d^order) while XLA fuses the inner dense evaluation; the Pallas kernel
-(``pigs_tpu.ops.pallas_mixture``) tiles both axes explicitly for the speed-of-light
-path and is used automatically on TPU for the orders it supports.
+blockwise path chunks the sample axis with ``lax.map`` so peak memory is
+O(chunk * n * d^order) while XLA fuses the inner dense evaluation; the fused Pallas
+kernels (``pigs_tpu.ops.pallas_mixture``, Triton route) keep the per-pair
+intermediates in registers instead, and :func:`use_fused_kernel` decides where
+they run.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import jax.numpy as jnp
 
 from pigs_tpu.ops.oracle import MixtureFields, eval_mixture_dense
 
-__all__ = ["eval_mixture", "eval_mixture_region", "eval_mixture_image"]
+__all__ = ["eval_mixture", "eval_mixture_region", "eval_mixture_image",
+           "use_fused_kernel"]
 
 
 def _pad_to_multiple(x: jax.Array, multiple: int, axis: int = 0):
@@ -37,8 +39,14 @@ def _pad_to_multiple(x: jax.Array, multiple: int, axis: int = 0):
     return jnp.pad(x, pad_widths), size
 
 
+def use_fused_kernel(platform: str, d: int, dtype) -> bool:
+    """The rule behind ``impl="auto"``: the fused kernels on an NVIDIA GPU for
+    d in (1, 2) in float32, the blockwise XLA path everywhere else."""
+    return platform == "gpu" and d in (1, 2) and dtype == jnp.float32
+
+
 def _eval_d1_via_d2(means, conics, values, samples, order, mask, period,
-                    diff_samples):
+                    diff_samples, interpret):
     """d=1 on the fused d=2 kernel: embed on the x-axis with a zero second
     coordinate and a conic whose dummy row/column is zero, so the exponent,
     every derivative order, and every adjoint are exactly the 1D values in the
@@ -59,7 +67,7 @@ def _eval_d1_via_d2(means, conics, values, samples, order, mask, period,
         [samples.reshape(m, 1), jnp.zeros((m, 1), dt)], axis=-1)
     out = eval_mixture_pallas(means2, conics2, values, samples2, order=order,
                               mask=mask, period=period,
-                              diff_samples=diff_samples)
+                              diff_samples=diff_samples, interpret=interpret)
     return MixtureFields(
         u=out.u,
         ux=None if out.ux is None else out.ux[:, :1],
@@ -69,7 +77,7 @@ def _eval_d1_via_d2(means, conics, values, samples, order, mask, period,
 
 
 @partial(jax.jit, static_argnames=("order", "period", "sample_chunk", "impl",
-                                   "diff_samples"))
+                                   "diff_samples", "interpret"))
 def eval_mixture(
     means: jax.Array,
     conics: jax.Array,
@@ -81,6 +89,7 @@ def eval_mixture(
     sample_chunk: int = 1024,
     impl: str = "auto",
     diff_samples: bool = True,
+    interpret: bool = False,
 ) -> MixtureFields:
     """Evaluate a Gaussian mixture field (value + derivatives) at sample points.
 
@@ -90,13 +99,12 @@ def eval_mixture(
 
     ``diff_samples=False`` promises the caller never differentiates w.r.t.
     ``samples`` (true of every training loop — collocation points are
-    constants); the Pallas path then skips its sample-grad kernel, halving the
+    constants); the fused path then skips its sample-grad kernel, halving the
     backward.  The blockwise path ignores the flag (autodiff handles it).
 
-    ``impl``: "auto" uses the fused Pallas kernel on TPU for d=2 f32 (both the
-    forward and its two-kernel analytic backward; ~14x faster fwd+bwd than the
-    blockwise XLA path on v5e and closer to the f64 oracle); "xla" forces the
-    blockwise path; "pallas" forces the kernel.
+    ``impl``: "auto" follows :func:`use_fused_kernel`; "xla" forces the
+    blockwise path; "pallas" forces the fused kernels.  ``interpret=True`` runs
+    the fused kernels through the Pallas interpreter (CPU tests only).
 
     Note ``conics`` here is the full symmetric ``(n, d, d)`` inverse covariance.
     Packed triangular storage from :func:`pigs_tpu.gaussians.build_covariances` can
@@ -104,9 +112,7 @@ def eval_mixture(
     """
     d = samples.shape[-1]
     if impl == "auto":
-        on_accel = jax.default_backend() != "cpu"
-        use_pallas = (on_accel and d in (1, 2)
-                      and samples.dtype == jnp.float32)
+        use_pallas = use_fused_kernel(jax.default_backend(), d, samples.dtype)
     else:
         use_pallas = impl == "pallas"
     if use_pallas:
@@ -114,10 +120,12 @@ def eval_mixture(
         if d == 1:
             return _eval_d1_via_d2(means, conics, values, samples, order=order,
                                    mask=mask, period=period,
-                                   diff_samples=diff_samples)
+                                   diff_samples=diff_samples,
+                                   interpret=interpret)
         return eval_mixture_pallas(means, conics, values, samples, order=order,
                                    mask=mask, period=period,
-                                   diff_samples=diff_samples)
+                                   diff_samples=diff_samples,
+                                   interpret=interpret)
 
     m = samples.shape[0]
     if m <= sample_chunk:

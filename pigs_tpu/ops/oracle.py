@@ -21,6 +21,7 @@ autograd contract, SURVEY.md §2.1 "Autograd contract").  Works in f32 and f64.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import jax
@@ -78,11 +79,14 @@ def eval_mixture_dense(
     """
     n, d = means.shape
     m = samples.shape[0]
+    # Full float32 (or float64) products: a GPU would otherwise run float32
+    # einsums in TF32 (~3 decimal digits), and this is the reference.
+    einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
     delta = samples[:, None, :] - means[None, :, :]          # (m, n, d)
     if period is not None:
         delta = wrap_displacement(delta, period)
-    P = jnp.einsum("nab,mnb->mna", conics, delta)            # (m, n, d)
-    power = -0.5 * jnp.einsum("mna,mna->mn", delta, P)
+    P = einsum("nab,mnb->mna", conics, delta)            # (m, n, d)
+    power = -0.5 * einsum("mna,mna->mn", delta, P)
     g = jnp.exp(power)                                       # (m, n)
     if mask is not None:
         g = g * mask.astype(g.dtype)[None, :]
@@ -91,14 +95,14 @@ def eval_mixture_dense(
     u = jnp.sum(gv, axis=1)
     ux = uxx = uxxx = None
     if order >= 1:
-        ux = -jnp.einsum("mna,mnc->mac", P, gv)
+        ux = -einsum("mna,mnc->mac", P, gv)
     if order >= 2:
         w2 = P[:, :, :, None] * P[:, :, None, :] - conics[None]
-        uxx = jnp.einsum("mnab,mnc->mabc", w2, gv)
+        uxx = einsum("mnab,mnc->mabc", w2, gv)
     if order >= 3:
         CP = (conics[None, :, :, :, None] * P[:, :, None, None, :]      # C_ab P_c
               + conics[None, :, :, None, :] * P[:, :, None, :, None]    # C_ac P_b
               + conics[None, :, None, :, :] * P[:, :, :, None, None])   # C_bc P_a
         PPP = P[:, :, :, None, None] * P[:, :, None, :, None] * P[:, :, None, None, :]
-        uxxx = jnp.einsum("mnabe,mnc->mabec", CP - PPP, gv)
+        uxxx = einsum("mnabe,mnc->mabec", CP - PPP, gv)
     return MixtureFields(u=u, ux=ux, uxx=uxx, uxxx=uxxx)

@@ -1,14 +1,13 @@
-"""Multi-host initialization for pod-slice runs.
+"""Multi-process initialization.
 
-The reference is single-process (SURVEY.md §2.2); on a TPU pod slice each host
-runs the same program and must join the global runtime before building meshes.
-Call :func:`initialize_distributed` first thing in a multi-host driver; it is a
-safe no-op in single-process environments (including this build container).
+The reference is single-process (SURVEY.md §2.2); when several processes (one
+per host, or one per GPU) run the same program, each must join the global
+runtime before building meshes.  Call :func:`initialize_distributed` first
+thing in such a program; it is a no-op in a single process.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import jax
@@ -19,20 +18,16 @@ __all__ = ["initialize_distributed", "is_multihost", "host_summary"]
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> bool:
-    """Join the jax distributed runtime when running multi-host.
+    """Join the jax distributed runtime when running several processes.
 
-    With no arguments, relies on the TPU environment auto-detection
-    (``jax.distributed.initialize()`` discovers the coordinator on Cloud TPU).
-    Returns True if distributed mode was initialized.
+    Nothing discovers a cluster: pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id``, or leave
+    ``coordinator_address`` None for a single process.  Returns True if
+    distributed mode was initialized.
     """
-    already = jax.process_count() > 1
-    if already:
+    if jax.process_count() > 1:
         return True
-    env_says_multihost = any(
-        os.environ.get(k) for k in
-        ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-         "MEGASCALE_COORDINATOR_ADDRESS"))
-    if coordinator_address is None and not env_says_multihost:
+    if coordinator_address is None:
         return False  # single process: nothing to do
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

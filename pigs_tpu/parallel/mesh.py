@@ -1,10 +1,11 @@
 """Device-mesh construction and sharding helpers.
 
 The reference is strictly single-GPU (SURVEY.md §2.2 parallelism inventory); this
-layer is the additive TPU-native distributed design: a 2D mesh with a ``data``
+layer is the additive distributed design: a 2D mesh with a ``data``
 axis (collocation samples / query points) and a ``model`` axis (Gaussian
-primitives).  Collectives ride ICI via XLA (psum within ``shard_map``) — no
-NCCL/MPI analogs.
+primitives).  Collectives are XLA's (psum within ``shard_map``), which it
+hands to NCCL on GPUs.  Every GPU of a host reaches every other at the same
+rate, so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

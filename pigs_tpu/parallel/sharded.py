@@ -35,13 +35,14 @@ def eval_mixture_sharded(
     mask: Optional[jax.Array] = None,
     period: Optional[float] = None,
     impl: str = "auto",
+    interpret: bool = False,
 ) -> MixtureFields:
     """Mixture evaluation with samples sharded over ``data`` and Gaussians over
     ``model``.  Array sizes must divide the respective mesh axis sizes.
 
-    ``impl`` selects the per-device kernel exactly like
-    :func:`pigs_tpu.ops.mixture.eval_mixture` — "auto" runs the fused Pallas
-    kernels on each device's local shard inside ``shard_map`` on TPU.
+    ``impl`` and ``interpret`` select the per-device path exactly like
+    :func:`pigs_tpu.ops.mixture.eval_mixture` — "auto" runs the fused kernels
+    on each device's local shard inside ``shard_map`` on a GPU.
 
     Returns fields sharded over the ``data`` axis (replicated over ``model``).
     """
@@ -53,7 +54,7 @@ def eval_mixture_sharded(
     def local(means, conics, values, mask, samples):
         out = eval_mixture(means, conics, values, samples, order=order,
                            mask=mask, period=period, impl=impl,
-                           diff_samples=False)
+                           diff_samples=False, interpret=interpret)
         partial_fields = tuple(f for f in out[:n_orders])
         return tuple(jax.lax.psum(f, MODEL_AXIS) for f in partial_fields)
 
@@ -81,11 +82,12 @@ def eval_mixture_ring(
     mask: Optional[jax.Array] = None,
     period: Optional[float] = None,
     impl: str = "auto",
+    interpret: bool = False,
 ) -> MixtureFields:
     """Ring-accumulation mixture evaluation for Gaussian counts too large to
     replicate: Gaussians stay sharded over the ``model`` axis; each device
     evaluates the resident shard against its sample shard, then the Gaussian
-    shards rotate around the ring via ``ppermute`` (ICI neighbor exchange)
+    shards rotate around the ring via ``ppermute`` (neighbor exchange)
     until every device has seen every shard (SURVEY.md §5 "long-context"
     note: blockwise streaming instead of an all-gather).
 
@@ -109,7 +111,7 @@ def eval_mixture_ring(
             (means, conics, values, mask), acc = carry
             out = eval_mixture(means, conics, values, samples, order=order,
                                mask=mask, period=period, impl=impl,
-                               diff_samples=False)
+                               diff_samples=False, interpret=interpret)
             acc = tuple(a + f for a, f in zip(acc, out[:n_orders]))
             shard = jax.tree_util.tree_map(rotate,
                                            (means, conics, values, mask))
@@ -117,7 +119,7 @@ def eval_mixture_ring(
 
         out0 = eval_mixture(means, conics, values, samples, order=order,
                             mask=mask, period=period, impl=impl,
-                            diff_samples=False)
+                            diff_samples=False, interpret=interpret)
         zeros = tuple(jnp.zeros_like(f) for f in out0[:n_orders])
         (_, acc), _ = jax.lax.scan(
             body, ((means, conics, values, mask), zeros), None,

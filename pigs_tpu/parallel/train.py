@@ -1,10 +1,10 @@
 """Data-parallel PN training step: collocation samples sharded over the mesh,
-network parameters replicated, gradients all-reduced over ICI.
+network parameters replicated, gradients all-reduced across devices.
 
 The reference has no distributed training (SURVEY.md §2.2); this is the
-additive TPU-native design: each device computes the physics losses on its
+additive design: each device computes the physics losses on its
 sample shard, gradients are ``pmean``-ed over the ``data`` axis (XLA lowers to
-an ICI all-reduce overlapped with the backward where possible), and one
+an all-reduce overlapped with the backward where possible), and one
 replicated Adam update is applied.  Per-sample losses are means over equal
 shards, so ``pmean`` of local means equals the global mean.
 """
@@ -47,7 +47,7 @@ def make_dp_train_step(mesh: Mesh, cfg: ModelConfig, network, opt):
 
         (loss, (new_state, curr)), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(params)
-        # Gradient all-reduce over the data axis (ICI collective).
+        # Gradient all-reduce over the data axis.
         grads = jax.lax.pmean(grads, DATA_AXIS)
         loss = jax.lax.pmean(loss, DATA_AXIS)
 

@@ -5,7 +5,7 @@ Functional redesign of the reference's test_no_mlp.py / test_no_mlp_1d.py driver
 against the PDE residual between the frozen previous mixture and the current one;
 periodically prune weak Gaussians and split high-gradient ones.
 
-TPU-native structure: parameters live in fixed-capacity padded buffers with an
+Static-shape structure: parameters live in fixed-capacity padded buffers with an
 active mask; the inner optimization is a jitted ``lax.scan`` over iterations; the
 outer convergence check and densification happen at block boundaries in Python
 (one recompile-free jit per block).  Adam-moment "surgery" (test_no_mlp.py:218-245)

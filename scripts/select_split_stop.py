@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Honest stop-step selection for eval-time densification (VERDICT r2 weak #4).
+"""Honest stop-step selection for eval-time densification.
 
 Round-2's 0.175 headline picked the rollout-densification stop step by its
 score on the same single FD trajectory it was reported on (oracle
@@ -17,7 +17,7 @@ selection).  This script separates selection from evaluation:
        * oracle        — the per-trajectory best stop step (upper bound).
 
 Example:
-  python scripts/select_split_stop.py --ckpt artifacts/burgers_dt01_ckpt_30000 \
+  python scripts/select_split_stop.py --ckpt artifacts/burgers_dt01_ckpt_30000.npz \
       --out results_burgers_dt01_heldout
 """
 
@@ -30,10 +30,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--ckpt", default="artifacts/burgers_dt01_ckpt_30000",
-                   help="orbax checkpoint directory (a single step dir)")
+    p.add_argument("--ckpt", default="artifacts/burgers_dt01_ckpt_30000.npz",
+                   help="checkpoint file (train/checkpoint.py format)")
     p.add_argument("--problem", default="burgers")
     p.add_argument("--dt", type=float, default=0.1)
     p.add_argument("--nx", type=int, default=20)
@@ -47,22 +47,18 @@ def main():
                    help="base seed for the held-out ICs (disjoint from the "
                         "training stream)")
     p.add_argument("--out", default="results_burgers_dt01_heldout")
-    args = p.parse_args()
-
-    import shutil
-    import tempfile
+    args = p.parse_args(argv)
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+    from pigs_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
     from pigs_tpu.models.model import (ModelConfig, make_initial_state,
                                        randomize_state)
     from pigs_tpu.pde import IntegrationRule, Problem
-    from pigs_tpu.train.checkpoint import restore_checkpoint
+    from pigs_tpu.train.checkpoint import load_checkpoint_file
     from pigs_tpu.train.pn import (TrainConfig, init_training, rollout,
                                    rollout_metrics)
     from pigs_tpu.utils.fd import solve_fd_2d
@@ -71,18 +67,14 @@ def main():
     cfg = ModelConfig.create(problem, IntegrationRule.TRAPEZOID,
                              nx=args.nx, ny=args.nx, d=2, scale=1.0)
     network, params, _, _ = init_training(cfg, TrainConfig(n_epochs=1))
-    # Stage the bare step dir under a manager root (the same restore path
-    # BENCHMARKS.md's repro recipe uses).
-    with tempfile.TemporaryDirectory() as td:
-        shutil.copytree(args.ckpt, os.path.join(td, "30000"))
-        restored = restore_checkpoint(td, params)
-        # Roll out with the same parameters the validation run evaluated:
-        # the EMA shadow when the checkpoint carries one (validate_pn.py).
-        if restored.ema_params is not None:
-            print("using EMA params", flush=True)
-            params = restored.ema_params
-        else:
-            params = restored.params
+    restored = load_checkpoint_file(args.ckpt, params)
+    # Roll out with the same parameters the validation run evaluated: the EMA
+    # shadow when the checkpoint carries one (validate_pn.py).
+    if restored.ema_params is not None:
+        print("using EMA params", flush=True)
+        params = restored.ema_params
+    else:
+        params = restored.params
     print(f"restored {args.ckpt}", flush=True)
 
     stops = [int(s) for s in args.stops.split(",")]

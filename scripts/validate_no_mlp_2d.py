@@ -22,7 +22,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--problem", default="burgers",
                    choices=["diffusion", "burgers", "wave"])
@@ -68,12 +68,11 @@ def main():
     p.add_argument("--res", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+    from pigs_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -147,6 +146,7 @@ def main():
     print("per-step rel-L2 vs FD:", " ".join(f"{v:.4f}" for v in rel))
     print(f"max {max(rel):.4f}  mean {np.mean(rel):.4f}  "
           f"solve {solve_s:.0f}s  gaussians {counts[0]}->{counts[-1]}")
+    return summary
 
 
 if __name__ == "__main__":

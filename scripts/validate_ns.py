@@ -31,7 +31,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--n-traj", type=int, default=4,
                    help="trajectories to generate/fit (last one held out "
@@ -101,12 +101,11 @@ def main():
                         "Default: <out>/ns_data.npz per-run (round-4 runs "
                         "committed three byte-identical copies that way)")
     p.add_argument("--resume", action="store_true")
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+    from pigs_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

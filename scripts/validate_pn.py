@@ -28,7 +28,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--problem", default="burgers",
                    choices=["burgers", "diffusion", "wave", "poisson", "test"])
@@ -95,12 +95,11 @@ def main():
     p.add_argument("--res", type=int, default=64)
     p.add_argument("--out", default="results_validate_pn")
     p.add_argument("--resume", action="store_true")
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+    from pigs_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -268,29 +267,29 @@ def main():
         log_fn("mean y trajectory: "
                + " ".join(f"{v:.3f}" for v in ys[::5]))
 
-    if losses:
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-        fig = plt.figure()
-        plt.plot(losses)
-        plt.yscale("log")
-        plt.xlabel(f"epoch / {tcfg.log_step}")
-        plt.ylabel("total loss")
-        fig.savefig(os.path.join(args.out, "training_loss.png"))
-        plt.close(fig)
-
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     log_fn(json.dumps({k: v for k, v in summary.items()
                        if not isinstance(v, list)}))
 
-    try:
+    try:  # plots are best-effort: matplotlib is optional
         from pigs_tpu.utils.plotting import render_rollout_artifacts
+        if losses:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            fig = plt.figure()
+            plt.plot(losses)
+            plt.yscale("log")
+            plt.xlabel(f"epoch / {tcfg.log_step}")
+            plt.ylabel("total loss")
+            fig.savefig(os.path.join(args.out, "training_loss.png"))
+            plt.close(fig)
         for w in render_rollout_artifacts(args.out):
             log_fn(f"wrote {w}")
-    except Exception as e:  # plots are best-effort after a long run
-        log_fn(f"panel rendering failed: {e}")
+    except Exception as e:
+        log_fn(f"plotting skipped: {e}")
+    return summary
 
 
 if __name__ == "__main__":

@@ -1,11 +1,7 @@
 """Driver entry points compile and execute (single chip + 8-device dry run)."""
 
-import sys
-
 import jax
 import numpy as np
-
-sys.path.insert(0, "/root/repo")
 
 
 def test_entry_compiles_and_runs():

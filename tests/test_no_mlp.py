@@ -1,7 +1,7 @@
 """No-MLP direct solver: IC fitting converges, PDE timestep optimizes, densify.
 
 The behavioral analog of the reference's CPU-runnable 1D config
-(test_no_mlp_1d.py; BASELINE.json configs[0]).
+(test_no_mlp_1d.py).
 """
 
 import jax

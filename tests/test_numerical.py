@@ -1,7 +1,7 @@
 """Gaussian-mixture solutions vs independent finite-difference ground truth.
 
 The analog of the reference's test_numerical.py / test_numerical_2d.py (py-pde
-comparisons), using the in-tree RK4 FD solvers.  Validates BASELINE.json
+comparisons), using the in-tree RK4 FD solvers.  Validates the reference
 config 1 behavior: the 1D no-MLP Burgers solve must track the FD solution.
 """
 

@@ -1,19 +1,25 @@
-"""Pallas fused kernel vs the dense oracle (interpret mode on CPU).
+"""Fused Pallas kernels vs the dense oracle (interpret mode on CPU).
 
-On CPU the kernel runs through the Pallas interpreter (pltpu interpret mode);
-the same code compiles to Mosaic on TPU.  Values for all orders and gradients
-through the custom VJP must match the oracle.
+On CPU the Triton-route kernels run through the Pallas interpreter
+(``interpret=True``); the same code compiles through Triton on the GPU.
+Values for all orders and gradients through the custom VJP must match the
+oracle.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from pigs_tpu import gaussians
 from pigs_tpu.ops.oracle import eval_mixture_dense
-from pigs_tpu.ops.pallas_mixture import eval_mixture_pallas
+from pigs_tpu.ops import pallas_mixture
+
+# Every kernel call in this file goes through the interpreter.
+eval_mixture_pallas = functools.partial(pallas_mixture.eval_mixture_pallas,
+                                        interpret=True)
 
 
 def make(key, n=70, c=1, m=130, dtype=jnp.float32):
@@ -31,8 +37,7 @@ def make(key, n=70, c=1, m=130, dtype=jnp.float32):
 @pytest.mark.parametrize("c", [1, 2])
 def test_pallas_matches_oracle(order, c):
     means, con, values, samples = make(jax.random.PRNGKey(0), c=c)
-    with pltpu.force_tpu_interpret_mode():
-        out = eval_mixture_pallas(means, con, values, samples, order=order)
+    out = eval_mixture_pallas(means, con, values, samples, order=order)
     ref = eval_mixture_dense(means.astype(jnp.float32), con.astype(jnp.float32),
                              values.astype(jnp.float32),
                              samples.astype(jnp.float32), order=order)
@@ -46,9 +51,8 @@ def test_pallas_matches_oracle(order, c):
 def test_pallas_mask():
     means, con, values, samples = make(jax.random.PRNGKey(1))
     mask = jnp.arange(means.shape[0]) % 3 != 0
-    with pltpu.force_tpu_interpret_mode():
-        out = eval_mixture_pallas(means, con, values, samples, order=1,
-                                  mask=mask)
+    out = eval_mixture_pallas(means, con, values, samples, order=1,
+                              mask=mask)
     ref = eval_mixture_dense(means[mask], con[mask], values[mask], samples,
                              order=1)
     np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u), rtol=3e-4,
@@ -59,9 +63,8 @@ def test_pallas_mask():
 
 def test_pallas_periodic():
     means, con, values, samples = make(jax.random.PRNGKey(2), n=30, m=40)
-    with pltpu.force_tpu_interpret_mode():
-        out = eval_mixture_pallas(means, con, values, samples, order=0,
-                                  period=2.0)
+    out = eval_mixture_pallas(means, con, values, samples, order=0,
+                              period=2.0)
     ref = eval_mixture_dense(means, con, values, samples, order=0, period=2.0)
     np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u), rtol=3e-4,
                                atol=1e-4)
@@ -88,9 +91,8 @@ def test_pallas_gradients_match_oracle():
         return (jnp.sum(out.u ** 2) + jnp.sum(out.ux ** 2)
                 + jnp.sum(out.uxx ** 2))
 
-    with pltpu.force_tpu_interpret_mode():
-        g1 = jax.grad(loss_pallas, argnums=(0, 1, 2, 3))(means, con, values,
-                                                         samples)
+    g1 = jax.grad(loss_pallas, argnums=(0, 1, 2, 3))(means, con, values,
+                                                     samples)
     g2 = jax.grad(loss_dense, argnums=(0, 1, 2, 3))(means, con, values,
                                                     samples)
     for k, (a, b) in enumerate(zip(g1, g2)):
@@ -116,9 +118,8 @@ def test_pallas_gradients_order3_and_mask():
         return (jnp.sum(out.u ** 2) + jnp.sum(out.uxx ** 2)
                 + jnp.sum(out.uxxx ** 2))
 
-    with pltpu.force_tpu_interpret_mode():
-        g1 = jax.grad(loss_pallas, argnums=(0, 1, 2, 3))(means, con, values,
-                                                         samples)
+    g1 = jax.grad(loss_pallas, argnums=(0, 1, 2, 3))(means, con, values,
+                                                     samples)
     g2 = jax.grad(loss_dense, argnums=(0, 1, 2, 3))(means, con, values,
                                                     samples)
     for k, (a, b) in enumerate(zip(g1, g2)):
@@ -138,9 +139,8 @@ def test_pallas_periodic_gradients():
             return jnp.sum(out.u ** 2) + jnp.sum(out.ux ** 2)
         return inner
 
-    with pltpu.force_tpu_interpret_mode():
-        g1 = jax.grad(loss(eval_mixture_pallas), argnums=(0, 1, 2))(
-            means, con, values)
+    g1 = jax.grad(loss(eval_mixture_pallas), argnums=(0, 1, 2))(
+        means, con, values)
     g2 = jax.grad(loss(eval_mixture_dense), argnums=(0, 1, 2))(
         means, con, values)
     for k, (a, b) in enumerate(zip(g1, g2)):
@@ -154,8 +154,7 @@ def test_pallas_odd_sizes_and_padding():
     # Ragged sizes well below one tile and just above.
     for n, m in [(3, 5), (129, 257)]:
         means, con, values, samples = make(jax.random.PRNGKey(4), n=n, m=m)
-        with pltpu.force_tpu_interpret_mode():
-            out = eval_mixture_pallas(means, con, values, samples, order=2)
+        out = eval_mixture_pallas(means, con, values, samples, order=2)
         ref = eval_mixture_dense(means, con, values, samples, order=2)
         np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u),
                                    rtol=3e-4, atol=1e-4)
@@ -175,11 +174,10 @@ def test_diff_samples_false_keeps_param_grads():
             return jnp.sum(out.u ** 2) + jnp.sum(out.uxx ** 2)
         return inner
 
-    with pltpu.force_tpu_interpret_mode():
-        g_on = jax.grad(loss(True), argnums=(0, 1, 2, 3))(means, con, values,
-                                                          samples)
-        g_off = jax.grad(loss(False), argnums=(0, 1, 2, 3))(means, con, values,
-                                                            samples)
+    g_on = jax.grad(loss(True), argnums=(0, 1, 2, 3))(means, con, values,
+                                                      samples)
+    g_off = jax.grad(loss(False), argnums=(0, 1, 2, 3))(means, con, values,
+                                                        samples)
     for a, b in zip(g_on[:3], g_off[:3]):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6)
     assert float(jnp.abs(g_on[3]).max()) > 0
@@ -208,9 +206,8 @@ def test_grad_of_grad_matches_dense():
 
         return outer
 
-    with pltpu.force_tpu_interpret_mode():
-        gg_pallas = jax.grad(make_loss(eval_mixture_pallas, False),
-                             argnums=(0, 1, 2))(means, con, values)
+    gg_pallas = jax.grad(make_loss(eval_mixture_pallas, False),
+                         argnums=(0, 1, 2))(means, con, values)
     gg_dense = jax.grad(make_loss(eval_mixture_dense, True),
                         argnums=(0, 1, 2))(means, con, values)
     for k, (a, b) in enumerate(zip(gg_pallas, gg_dense)):
@@ -228,8 +225,6 @@ def test_grad_of_grad_chunked_matches_unchunked(monkeypatch):
     the unchunked dense fallback would materialize ~0.5 TB at the headline
     65536x2048).  Chunked and unchunked second-order gradients must agree to
     float tolerance, including a non-dividing chunk edge (m=30 vs chunk=5)."""
-    from pigs_tpu.ops import pallas_mixture
-
     means, con, values, samples = make(jax.random.PRNGKey(11), n=20, m=30)
 
     def outer(means, con, values):
@@ -240,15 +235,13 @@ def test_grad_of_grad_chunked_matches_unchunked(monkeypatch):
         gm, gc, gv = jax.grad(inner, argnums=(0, 1, 2))(means, con, values)
         return jnp.sum(gm ** 2) + jnp.sum(gc ** 2) + jnp.sum(gv ** 2)
 
-    with pltpu.force_tpu_interpret_mode():
-        ref = jax.grad(outer, argnums=(0, 1, 2))(means, con, values)
+    ref = jax.grad(outer, argnums=(0, 1, 2))(means, con, values)
     # Force chunking: budget of 5 rows' worth of pairs -> 6 chunks of 5 over
     # m=30, plus re-run with a chunk that does NOT divide m (budget 7 rows).
     for rows in (5, 7):
         monkeypatch.setattr(pallas_mixture, "SECOND_ORDER_PAIR_BUDGET",
                             rows * means.shape[0])
-        with pltpu.force_tpu_interpret_mode():
-            got = jax.grad(outer, argnums=(0, 1, 2))(means, con, values)
+        got = jax.grad(outer, argnums=(0, 1, 2))(means, con, values)
         for a, b in zip(got, ref):
             a, b = np.asarray(a), np.asarray(b)
             scale = max(1.0, np.abs(b).max())
@@ -270,9 +263,8 @@ def test_pallas_d1_via_d2_matches_oracle():
     samples = jax.random.uniform(ks[3], (m, 1), jnp.float32) * 2.0 - 1.0
     mask = jnp.arange(n) % 5 != 0
 
-    with pltpu.force_tpu_interpret_mode():
-        out = eval_mixture(means, conics, values, samples, order=3,
-                           mask=mask, impl="pallas")
+    out = eval_mixture(means, conics, values, samples, order=3,
+                       mask=mask, impl="pallas", interpret=True)
     ref = eval_mixture_dense(means, conics, values, samples, order=3,
                              mask=mask)
     for a, b in zip(out, ref):
@@ -281,9 +273,8 @@ def test_pallas_d1_via_d2_matches_oracle():
                                    rtol=3e-4, atol=1e-4)
 
     # Periodic wrap survives the embedding (second coordinate wraps to 0).
-    with pltpu.force_tpu_interpret_mode():
-        outp = eval_mixture(means, conics, values, samples, order=0,
-                            period=2.0, impl="pallas")
+    outp = eval_mixture(means, conics, values, samples, order=0,
+                        period=2.0, impl="pallas", interpret=True)
     refp = eval_mixture_dense(means, conics, values, samples, order=0,
                               period=2.0)
     np.testing.assert_allclose(np.asarray(outp.u), np.asarray(refp.u),
@@ -298,13 +289,64 @@ def test_pallas_d1_via_d2_matches_oracle():
 
     def pallas_fn(means, conics, values, samples, order, mask):
         return eval_mixture(means, conics, values, samples, order=order,
-                            mask=mask, impl="pallas")
+                            mask=mask, impl="pallas", interpret=True)
 
-    with pltpu.force_tpu_interpret_mode():
-        g = jax.grad(make_loss(pallas_fn),
-                     argnums=(0, 1, 2))(means, conics, values)
+    g = jax.grad(make_loss(pallas_fn),
+                 argnums=(0, 1, 2))(means, conics, values)
     g_ref = jax.grad(make_loss(eval_mixture_dense),
                      argnums=(0, 1, 2))(means, conics, values)
     for a, b in zip(g, g_ref):  # 1x1 conic: symmetrization is the identity
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=3e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("platform,d,dtype,fused", [
+    ("gpu", 2, jnp.float32, True), ("gpu", 1, jnp.float32, True),
+    ("gpu", 3, jnp.float32, False), ("gpu", 2, jnp.float64, False),
+    ("cpu", 2, jnp.float32, False)])
+def test_auto_chooses_by_platform(platform, d, dtype, fused):
+    """impl="auto" runs the fused kernels only on a GPU, for d in (1, 2) in
+    float32; every other case takes the blockwise XLA path."""
+    from pigs_tpu.ops.mixture import use_fused_kernel
+    assert use_fused_kernel(platform, d, dtype) is fused
+
+
+def test_auto_on_cpu_traces_no_kernel():
+    from pigs_tpu.ops.mixture import eval_mixture
+    means, con, values, samples = make(jax.random.PRNGKey(0), n=8, m=16)
+    auto = str(jax.make_jaxpr(lambda *a: eval_mixture(*a, order=2))(
+        means, con, values, samples))
+    forced = str(jax.make_jaxpr(lambda *a: eval_mixture(
+        *a, order=2, impl="pallas", interpret=True))(
+            means, con, values, samples))
+    assert "pallas_call" not in auto and "pallas_call" in forced
+
+
+def test_wrapper_pads_ragged_sizes():
+    """Ragged m and n are zero-padded to the block sizes in the
+    structure-of-arrays layout; padded Gaussians carry value 0."""
+    means, con, values, samples = make(jax.random.PRNGKey(1), n=37, m=101,
+                                       c=2)
+    (x, y), gauss, v = pallas_mixture._soa(
+        means, pallas_mixture._pack_conics(con), values, samples, 64, 16)
+    assert x.shape == y.shape == (128,)
+    assert len(gauss) == 5 and all(g.shape == (48,) for g in gauss)
+    assert v.shape == (2, 48)
+    np.testing.assert_array_equal(np.asarray(v[:, 37:]), 0.0)
+    np.testing.assert_array_equal(np.asarray(x[:101]),
+                                  np.asarray(samples[:, 0]))
+    np.testing.assert_array_equal(np.asarray(gauss[2][:37]),
+                                  np.asarray(con[:, 0, 0]))
+
+
+@pytest.mark.parametrize("out_tiles,red_tiles,segs,per_seg", [
+    (1024, 128, 1, 128),   # enough output tiles: no split
+    (64, 104, 9, 12),      # Burgers training shape (m=4096, n=1664 / 16)
+    (13, 128, 32, 4),      # parameter-grad kernel at n=1664 / 128
+    (1, 3, 3, 1),          # never more segments than reduced tiles
+])
+def test_segments_fill_the_card(out_tiles, red_tiles, segs, per_seg):
+    """The reduced axis splits into segments that cover it exactly once."""
+    got = pallas_mixture.segments(out_tiles, red_tiles)
+    assert got == (segs, per_seg)
+    assert (got[0] - 1) * got[1] < red_tiles <= got[0] * got[1]

@@ -562,3 +562,52 @@ def test_multi_epoch_dispatch_through_split_regime():
     result = train(cfg, tcfg, log_fn=lambda *_: None)
     assert len(result.training_loss) == 4
     assert np.isfinite(result.training_loss).all()
+
+
+@pytest.mark.parametrize("name,problem,clip,ema", [
+    ("burgers_dt01_ckpt_30000", Problem.BURGERS, None, False),
+    ("burgers_ns4096_ema2_ckpt_30000", Problem.BURGERS, 1.0, True),
+    ("ns_vorttrain_ckpt_20000", Problem.NAVIER_STOKES, 1.0, True),
+])
+def test_committed_checkpoints_restore(name, problem, clip, ema):
+    """The committed checkpoints restore into the network's parameter tree and
+    the recipe's optimizer state: same paths, shapes and dtypes, finite."""
+    import os
+    from pigs_tpu.train.checkpoint import load_checkpoint_file
+    from pigs_tpu.train.pn import init_training
+
+    cfg = ModelConfig.create(problem, IntegrationRule.TRAPEZOID, nx=20, ny=20,
+                             capacity=640)
+    _, params, _, opt_state = init_training(cfg,
+                                            TrainConfig(clip_norm=clip))
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "artifacts", name + ".npz")
+    r = load_checkpoint_file(path, params, opt_state)
+    assert r.step == int(name.rsplit("_", 1)[1])
+    assert len(r.training_loss) > 0
+    assert (r.ema_params is not None) == ema
+    for restored, like in ((r.params, params), (r.opt_state, opt_state)):
+        assert (jax.tree_util.tree_structure(restored)
+                == jax.tree_util.tree_structure(like))
+        for a, b in zip(jax.tree_util.tree_leaves(restored),
+                        jax.tree_util.tree_leaves(like)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert np.isfinite(a).all()
+
+
+def test_checkpoint_keeps_newest_three(tmp_path):
+    """Only the newest MAX_TO_KEEP steps stay on disk; the latest restores."""
+    import os
+    from pigs_tpu.train.checkpoint import (MAX_TO_KEEP, latest_step,
+                                           restore_checkpoint,
+                                           save_checkpoint)
+    params = {"w": jnp.arange(3.0)}
+    d = str(tmp_path / "ck")
+    for step in (1, 2, 3, 4, 5):
+        save_checkpoint(d, step, {"w": params["w"] * step}, None, [step])
+    assert sorted(os.listdir(d)) == [f"ckpt_{s}.npz" for s in (3, 4, 5)]
+    assert MAX_TO_KEEP == 3 and latest_step(d) == 5
+    r = restore_checkpoint(d, params)
+    np.testing.assert_array_equal(np.asarray(r.params["w"]),
+                                  np.arange(3.0) * 5)
+    assert r.opt_state is None and r.training_loss == [5.0]
